@@ -39,7 +39,8 @@ class RadarConfig:
 
     @property
     def padded_range_bins(self) -> int:
-        """Range bins padded to a lane multiple for TPU tiling."""
+        """Range bins padded to a multiple of 128 (storage layout of the
+        power image; the padding columns are masked out of detection)."""
         return _round_up(self.num_range_bins, 128)
 
     @property
@@ -53,8 +54,8 @@ class FeatureConfig:
 
     The reference's front-end (ORORA submodule, absent; SURVEY §1 L1) uses
     cen2019 feature extraction and ORB+Hamming matching on the Cartesian
-    image.  TPU-first redesign: cen2019 as vectorized/Pallas image ops,
-    descriptors as normalized Cartesian patches matched with one MXU matmul.
+    image.  Here: cen2019 as vectorized whole-scan image ops, constellation
+    descriptors matched with one correlation matmul.
     """
 
     detector: str = "cen2019"  # or "cen2018"
@@ -71,10 +72,6 @@ class FeatureConfig:
     peak_zq: float = 3.0
     #: static feature capacity (padded; validity-masked)
     max_features: int = 1024
-    #: peak selection recall target: < 1.0 uses the TPU-native tiled
-    #: approximate top-k (lax.approx_max_k; exact on CPU) — the weakest
-    #: ~2-5 % of peaks may be dropped; 1.0 forces the exact global sort
-    topk_recall: float = 0.95
     #: Cartesian image used for descriptors
     cart_size: int = 512
     cart_resolution: float = 0.5  # m / pixel  (512 px -> 256 m square)
@@ -189,7 +186,7 @@ class ScanContextConfig:
     #: loop-detection cadence in keyframes (reference: 1 Hz thread,
     #: laserPosegraphOptimization.cpp:575-585; radar keyframes ~4 Hz)
     detect_every_n_keyframes: int = 1
-    #: "full" = whole-bank all-shift correlation (TPU-native default);
+    #: "full" = whole-bank all-shift correlation (default);
     #: "ringkey" = ring-key KNN prefilter then per-candidate distance
     #: (the reference's two-stage pipeline, Scancontext.cpp:331-422)
     search_mode: str = "full"
@@ -205,8 +202,8 @@ class IcpConfig:
     0.4 m (cpp:347-351, 389).  That absolute gate assumes a particular
     feature-noise scale; radar feature localization error grows with range
     (tangential sigma ~ r * sigma_azimuth), so a fixed m² threshold is
-    either too strict at long range or too lax up close.  The TPU-native
-    default is therefore ``fitness_metric="whitened"``: each correspondence's
+    either too strict at long range or too lax up close.  The default here
+    is therefore ``fitness_metric="whitened"``: each correspondence's
     squared distance is normalized by its expected variance
     2*(sigma_range² + (r * sigma_azimuth)²) from the same anisotropic noise
     model the ORORA registration uses, making the gate scale-free (≈1.0 for
@@ -219,18 +216,18 @@ class IcpConfig:
     max_iters: int = 100            # setMaximumIterations (378)
     #: transformation epsilon (379). The reference's 1e-6 assumes double
     #: precision; in f32 the per-iteration step floor is ~1e-5, so the
-    #: TPU default is 1e-4 (still far below any meaningful motion).
+    #: default is 1e-4 (still far below any meaningful motion).
     epsilon: float = 1e-4
     #: euclidean fitness epsilon (setEuclideanFitnessEpsilon, line 381):
     #: converged when the mean-squared correspondence error changes by less
     #: than this between iterations (PCL DefaultConvergenceCriteria)
     euclidean_fitness_eps: float = 1e-6
-    #: RELATIVE fitness-plateau exit (TPU-native addition, no PCL analogue):
+    #: RELATIVE fitness-plateau exit (an addition with no PCL analogue):
     #: also converged when |Δmse| < rel_fitness_eps * mse.  With speckle
     #: noise the NN assignments oscillate forever at the optimum — the step
     #: never falls below epsilon and the ABSOLUTE 1e-6 m² criterion never
     #: fires at mse ~1e-2 m², so every verification ground the full
-    #: max_iters (~100 x 1.5 ms on chip) for a pose already jittering
+    #: max_iters for a pose already jittering
     #: within noise.  0.1 %/iteration improvement is far inside the gate's
     #: margin; <= 0 disables (strict PCL criteria only).
     rel_fitness_eps: float = 1e-3
@@ -251,7 +248,7 @@ class IcpConfig:
     #: consistency gate (below).  For fitness_metric="pcl" use the
     #: reference's 0.3 (cpp:389).
     fitness_thresh: float = 0.75
-    #: odometry-consistency gate (TPU-native addition; no reference
+    #: odometry-consistency gate (an addition with no reference
     #: analogue — its absolute 0.3 m² gate implicitly rejects gross
     #: mismatches): accept a loop only if the ICP relative pose agrees
     #: with the graph-predicted relative pose within
@@ -286,7 +283,7 @@ class PgoConfig:
     (laserPosegraphOptimization.cpp:679-682); noise models at 147-171.
     Here: full-graph robust Gauss-Newton/LM re-solved incrementally with
     warm starts; normal equations solved by preconditioned CG so the solve
-    is matvec-only (TPU-friendly, shardable)."""
+    is matvec-only (no factorization; shards over a mesh)."""
 
     # noise sigmas (stddev), matching reference variances.  The reference's
     # node-0 prior (variance 1e-12, cpp:149-151) has no sigma knob here: it
@@ -309,8 +306,8 @@ class PgoConfig:
     #: reference's asynchronous scLoopICPBuf, unbounded with a backlog
     #: warning at 30, cpp:593-595).  1 = commit at the very next keyframe;
     #: larger values amortize the host<->device decision fetch over many
-    #: keyframes AND widen the fused segment (deeper MXU batching of the
-    #: per-keyframe detect+ICP).  16 keeps the commit lag at 4 s of sensor
+    #: keyframes AND widen the fused segment (more keyframes' detect+ICP
+    #: batched into one device program).  16 keeps the commit lag at 4 s of sensor
     #: time — well under the reference's 30-entry backlog warning.  Output
     #: consumers (current_pose/trajectory/map/checkpoint) always drain.
     loop_commit_defer: int = 16

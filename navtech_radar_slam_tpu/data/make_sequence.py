@@ -29,12 +29,16 @@ failure/coast handling.
 from __future__ import annotations
 
 import argparse
+import functools
+import multiprocessing
 import os
+from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 
 from navtech_radar_slam_tpu.config import RadarConfig
 from navtech_radar_slam_tpu.data.mulran import ENCODER_SIZE
+from navtech_radar_slam_tpu.data.png import write_gray_png
 from navtech_radar_slam_tpu.data.synthetic import RadarSimulator, SimConfig
 
 START_STAMP_US = 1_600_000_000_000_000  # arbitrary epoch, us
@@ -58,6 +62,20 @@ def encode_polar_png(power: np.ndarray, stamp_us: int, rc: RadarConfig,
     return img
 
 
+def _write_scan(sim, seq_dir, seed, period, distort, job):
+    """Render one scan and write its PNG (a module-level function so that
+    worker processes can run it)."""
+    i, pose, end_pose, atten, stamp_us = job
+    power = sim.render(
+        pose, noise_seed=seed * 100_003 + i,
+        end_pose=end_pose if distort else None,
+        t=i * period,
+    )
+    power = power * atten if atten != 1.0 else power
+    img = encode_polar_png(power, stamp_us, sim.radar, period)
+    write_gray_png(os.path.join(seq_dir, f"{stamp_us}.png"), img)
+
+
 def write_sequence(
     out_dir: str,
     num_scans: int = 600,
@@ -74,6 +92,7 @@ def write_sequence(
     gps_rate_hz: float = 10.0,
     gps_alt0: float = 70.0,
     world: str = "circuit",
+    workers: int = 1,
 ) -> np.ndarray:
     """Render + write the sequence; returns the (N, 3) ground-truth poses.
 
@@ -87,9 +106,10 @@ def write_sequence(
     next #4): the landmark field cloned (1.25 m jitter) at a distant site,
     plus dynamic scatterers; the trajectory laps site A, transits to the
     clone site B, and laps there — ScanContext produces below-threshold
-    cross-site candidates that submap ICP must reject."""
-    import cv2
+    cross-site candidates that submap ICP must reject.
 
+    ``workers > 1`` renders the scans in that many spawned processes; the
+    files are the same either way."""
     rc = RadarConfig()
     if world == "alias":
         if sim_cfg is None:
@@ -123,24 +143,32 @@ def write_sequence(
     for start, length in dropouts:
         drop[start:start + length] = dropout_atten
 
+    stamps = [start_stamp_us + round(i * period * 1e6)
+              for i in range(num_scans)]
+    jobs = [(i, gt[i], gt[i + 1], drop[i], stamps[i])
+            for i in range(num_scans)]
+    work = functools.partial(_write_scan, sim, seq, seed, period, distort)
+    if workers > 1:
+        pool = ProcessPoolExecutor(
+            workers, mp_context=multiprocessing.get_context("spawn"))
+        with pool:
+            done = pool.map(work, jobs, chunksize=8)
+            for i, _ in enumerate(done):
+                if progress and (i + 1) % 50 == 0:
+                    print(f"  rendered {i + 1}/{num_scans}", flush=True)
+    else:
+        for i, job in enumerate(jobs):
+            work(job)
+            if progress and (i + 1) % 50 == 0:
+                print(f"  rendered {i + 1}/{num_scans}", flush=True)
+
     rows = []
     for i in range(num_scans):
-        power = sim.render(
-            gt[i], noise_seed=seed * 100_003 + i,
-            end_pose=gt[i + 1] if distort else None,
-            t=i * period,
-        )
-        power = power * drop[i] if drop[i] != 1.0 else power
-        stamp_us = start_stamp_us + round(i * period * 1e6)
-        img = encode_polar_png(power, stamp_us, rc, period)
-        cv2.imwrite(os.path.join(seq, f"{stamp_us}.png"), img)
         c, s = np.cos(gt[i, 2]), np.sin(gt[i, 2])
         m = np.array([[c, -s, 0.0, gt[i, 0]],
                       [s, c, 0.0, gt[i, 1]],
                       [0.0, 0.0, 1.0, 0.0]])
-        rows.append([stamp_us * 1000] + list(m.reshape(-1)))
-        if progress and (i + 1) % 50 == 0:
-            print(f"  rendered {i + 1}/{num_scans}", flush=True)
+        rows.append([stamps[i] * 1000] + list(m.reshape(-1)))
 
     np.savetxt(os.path.join(out_dir, "global_pose.csv"),
                np.asarray(rows), delimiter=",")
@@ -189,6 +217,8 @@ def main(argv=None) -> int:
                    help="'alias' = perceptual-aliasing two-site course "
                         "with dynamic scatterers (cross-site ScanContext "
                         "candidates that ICP must reject)")
+    p.add_argument("--workers", type=int, default=1,
+                   help="render scans in this many processes")
     args = p.parse_args(argv)
 
     gt = write_sequence(
@@ -198,6 +228,7 @@ def main(argv=None) -> int:
         start_stamp_us=START_STAMP_US + round(args.stamp_offset_s * 1e6),
         gps=args.gps,
         world=args.world,
+        workers=args.workers,
     )
     laps = args.speed * args.scans / (4.0 * 2 * np.pi * args.radius)
     print(f"wrote {args.scans} scans ({laps:.2f} laps of r={args.radius} m) "

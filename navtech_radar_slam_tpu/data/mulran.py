@@ -12,10 +12,10 @@ azimuths (400) and whose first 11 columns embed per-ray metadata
 
 Filenames are the scan timestamps (``<stamp>.png``), ascending.
 
-Decoding is pure NumPy on the host; the fast path is the C++ runtime loader
-(navtech_radar_slam_tpu/runtime) which decodes + prefetches scans on worker
-threads while the TPU computes.  This module is the reference decoder and the
-fallback.
+Decoding is pure NumPy on the host (PNG codec in data/png.py); the fast path
+is the C++ runtime loader (navtech_radar_slam_tpu/runtime) which decodes +
+prefetches scans on worker threads while the device computes.  This module is
+the reference decoder and the fallback.
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ from typing import Iterator, Optional, Sequence, Tuple
 import numpy as np
 
 from navtech_radar_slam_tpu.config import RadarConfig
+from navtech_radar_slam_tpu.data.png import read_gray_png
 
 ENCODER_SIZE = 5600  # Navtech azimuth encoder ticks per revolution
 
@@ -50,12 +51,7 @@ class PolarScan:
 
 
 def _load_image(path: str) -> np.ndarray:
-    import cv2
-
-    img = cv2.imread(path, cv2.IMREAD_GRAYSCALE)
-    if img is None:
-        raise FileNotFoundError(path)
-    return img
+    return read_gray_png(path)
 
 
 def decode_polar_scan(

@@ -1,4 +1,4 @@
-"""cen2019 / cen2018 radar feature extraction, TPU-vectorized.
+"""cen2019 / cen2018 radar feature extraction, vectorized over the scan.
 
 The reference front-end (ORORA submodule, absent from the tree; SURVEY §1 L1
 step 2) extracts sparse targets from the polar power image with the Cen &
@@ -13,8 +13,8 @@ cen2019 (one target per high-intensity region):
      AND low gradient, i.e. region interiors rather than edges.
   4. mask = h > mean(h) over the valid region.
   5. One peak (max power) per contiguous masked run along each azimuth —
-     computed with a *segmented associative scan* (run-reset running max),
-     not a per-run loop, so the whole step is two `lax.associative_scan`s.
+     computed with a *segmented scan* (run-reset running max, forward and
+     backward), not a per-run loop.
   6. Global top-K peaks by power -> fixed-size (K, ...) feature set + mask.
 
 cen2018 (threshold detector): mask = s > mean_az + zq * std_az per azimuth,
@@ -32,6 +32,7 @@ import jax
 import jax.numpy as jnp
 
 from navtech_radar_slam_tpu.config import FeatureConfig, RadarConfig
+from navtech_radar_slam_tpu.ops.topk import top_k
 
 
 class FeatureSet(NamedTuple):
@@ -52,10 +53,9 @@ def _gaussian_kernel1d(sigma: float, radius: int) -> jnp.ndarray:
 def _conv_along_range(img: jnp.ndarray, kernel: jnp.ndarray) -> jnp.ndarray:
     """Depthwise 1-D convolution along the range (last) axis, same padding.
 
-    Unrolled shift-and-add: a single-channel conv_general_dilated cannot use
-    the MXU (1 input channel) and lowers to a slow windowed reduction on TPU
-    (measured 9.7 ms for the cen2019 score map); T shifted fused
-    multiply-adds on the VPU are bandwidth-bound instead (<1 ms)."""
+    Unrolled shift-and-add: a single-channel convolution has nothing for a
+    matrix unit to do, while T shifted multiply-adds are one elementwise
+    chain that XLA fuses into a single memory-bound pass."""
     taps = int(kernel.shape[0])
     r = taps // 2
     nb = img.shape[-1]
@@ -85,20 +85,27 @@ def _segmented_running_max(v: jnp.ndarray, reset: jnp.ndarray, reverse: bool = F
     """Inclusive running max along the last axis that restarts where
     ``reset`` is True (at position i the scan starts fresh from v[i]).
 
-    Implemented with `lax.associative_scan` over the standard segmented-max
-    monoid: (m2, r2) ∘ (m1, r1) applied left-to-right gives
-    m = m2 if r2 else max(m1, m2).
-    """
+    Hillis-Steele doubling over the segmented-max monoid — (m2, r2) after
+    (m1, r1) gives m = m2 if r2 else max(m1, m2) — as a ``fori_loop`` of
+    ceil(log2(n)) elementwise steps, each one fusion."""
+    if reverse:
+        return _segmented_running_max(v[..., ::-1], reset[..., ::-1])[..., ::-1]
+    n = v.shape[-1]
+    neg = jnp.full_like(v, -jnp.inf)
+    no = jnp.zeros_like(reset)
 
-    def combine(a, b):
-        m1, r1 = a
-        m2, r2 = b
-        m = jnp.where(r2, m2, jnp.maximum(m1, m2))
-        return m, jnp.logical_or(r1, r2)
+    def step(i, carry):
+        m, r = carry
+        k = jnp.left_shift(1, i)
+        # element j combines with element j - k (identity -inf/False before 0)
+        m_left = jax.lax.dynamic_slice_in_dim(
+            jnp.concatenate([neg, m], axis=-1), n - k, n, axis=-1)
+        r_left = jax.lax.dynamic_slice_in_dim(
+            jnp.concatenate([no, r], axis=-1), n - k, n, axis=-1)
+        return jnp.where(r, m, jnp.maximum(m, m_left)), r | r_left
 
-    m, _ = jax.lax.associative_scan(
-        combine, (v, reset), axis=v.ndim - 1, reverse=reverse
-    )
+    steps = max(1, (n - 1).bit_length())
+    m, _ = jax.lax.fori_loop(0, steps, step, (v, reset))
     return m
 
 
@@ -132,25 +139,11 @@ def run_peaks(power: jnp.ndarray, mask: jnp.ndarray) -> jnp.ndarray:
     return mask & (v >= run_max) & (m_fwd_excl < v)
 
 
-def _finalize_topk(power: jnp.ndarray, peaks: jnp.ndarray, k: int,
-                   recall: float = 1.0) -> FeatureSet:
-    return _finalize_topk_scores(jnp.where(peaks, power, -jnp.inf), k, recall)
-
-
-def _finalize_topk_scores(scores2d: jnp.ndarray, k: int,
-                          recall: float = 1.0) -> FeatureSet:
-    na, nb = scores2d.shape
-    scores = scores2d.reshape(-1)
-    if recall < 1.0:
-        # TPU-native tiled approximate top-k (exact on CPU): the global
-        # top-k of the 1.4M-px score map is a full sort otherwise
-        # (measured 2.9 ms exact vs 1.1 ms approx at 0.98 realized recall;
-        # the tail features it may drop are the weakest peaks).
-        top_scores, top_idx = jax.lax.approx_max_k(
-            scores, k, recall_target=recall
-        )
-    else:
-        top_scores, top_idx = jax.lax.top_k(scores, k)
+def _finalize_topk(power: jnp.ndarray, peaks: jnp.ndarray, k: int) -> FeatureSet:
+    """The k strongest peaks by ``power`` (exact global top-k)."""
+    nb = power.shape[1]
+    scores = jnp.where(peaks, power, -jnp.inf).reshape(-1)
+    top_scores, top_idx = top_k(scores, k)
     valid = jnp.isfinite(top_scores)
     az = (top_idx // nb).astype(jnp.int32)
     rb = (top_idx % nb).astype(jnp.int32)
@@ -175,25 +168,6 @@ def cen2019_features(
 
     power: (num_azimuths, padded_range_bins) float32 in [0, 1].
     """
-    # The fused Pallas detector (ops/pallas/cen_peaks.py) keeps the whole
-    # scan VMEM-resident across smoothing/stats/peak stages: measured 696 vs
-    # 570 frames/s for the full streaming odometry step on v5e (22 % faster;
-    # timed with a device_get completion fence).  Default on for TPU;
-    # NRS_CEN_PALLAS=0 forces the XLA pipeline.
-    import os as _os
-
-    if _os.environ.get("NRS_CEN_PALLAS", "1") != "0":
-        from navtech_radar_slam_tpu.ops.pallas import should_use_pallas
-        from navtech_radar_slam_tpu.ops.pallas.cen_peaks import (
-            cen2019_scores_pallas,
-        )
-
-        if should_use_pallas():
-            scores = cen2019_scores_pallas(power, fcfg, rcfg)
-            return _finalize_topk_scores(
-                scores, fcfg.max_features, fcfg.topk_recall
-            )
-
     region = _valid_region_mask(power.shape, fcfg.min_range_bins, rcfg.num_range_bins)
     s = jnp.where(region, power, 0.0)
 
@@ -229,7 +203,7 @@ def cen2019_features(
     # rank and report peaks by *smoothed* power: single-bin speckle spikes
     # collapse under the range smoothing while true blobs survive, so the
     # top-k ordering (and any downstream power weighting) is noise-robust
-    return _finalize_topk(s_smooth, peaks, fcfg.max_features, fcfg.topk_recall)
+    return _finalize_topk(s_smooth, peaks, fcfg.max_features)
 
 
 def cen2018_features(
@@ -248,7 +222,7 @@ def cen2018_features(
     mask = (s_smooth > thresh) & region
 
     peaks = run_peaks(s_smooth, mask)
-    return _finalize_topk(s_smooth, peaks, fcfg.max_features, fcfg.topk_recall)
+    return _finalize_topk(s_smooth, peaks, fcfg.max_features)
 
 
 def extract_features(

@@ -3,13 +3,13 @@
 The reference's front-end (upstream yeti design, SURVEY §1 L1 step 3) computes
 ORB descriptors on an OpenCV-rendered Cartesian radar image and matches them
 with brute-force Hamming distance.  Binary descriptors and Hamming popcount
-are a poor fit for the MXU, so the TPU-native redesign is:
+do not map onto matrix units, so the redesign here is:
 
   * **constellation descriptors** (the production path): each feature's
     neighbourhood of other features soft-splatted into a radially-aligned
     histogram — exactly rotation invariant, robust to radar's sub-pixel blob
     structure, built from one (K, K) pairwise pass + a flat scatter;
-  * matching = a single (K, D) @ (D, K) correlation matmul on the MXU with
+  * matching = a single (K, D) @ (D, K) correlation matmul with
     mutual-nearest + Lowe ratio gating — the brute-force matcher the
     reference runs on CPU becomes one fused matmul + argmax;
   * polar -> Cartesian bilinear rendering and radially-aligned image-patch
@@ -24,6 +24,7 @@ import jax
 import jax.numpy as jnp
 
 from navtech_radar_slam_tpu.config import FeatureConfig, RadarConfig
+from navtech_radar_slam_tpu.ops.topk import top_k
 
 
 
@@ -98,7 +99,7 @@ def patch_descriptors(
     Patches are sampled in each feature's **radial frame** (axes aligned
     with the feature's bearing from the sensor): a scan rotation rotates
     the image, the feature position, and the bearing together, so the
-    sampled patch is exactly invariant to sensor rotation — the TPU-native
+    sampled patch is exactly invariant to sensor rotation — the
     replacement for ORB's orientation normalization (upstream yeti design),
     at zero extra cost (the sampling grid is rotated before the gather).
 
@@ -145,8 +146,8 @@ def constellation_descriptors(
       * robust to the sub-pixel blob structure that defeats image patches —
         radar features are sparse points, so the discriminative signal is
         the *constellation* of neighbours, not local image texture;
-      * one (K, K) pairwise pass + a single flat scatter-add: MXU/VPU work,
-        no gathers into image memory.
+      * one (K, K) pairwise pass + one batched contraction, no gathers
+        into image memory.
 
     This replaces the reference front-end's ORB descriptors (upstream yeti
     design, SURVEY §1 L1 step 3) with something radar-appropriate; matching
@@ -171,13 +172,14 @@ def constellation_descriptors(
     # mild radial falloff keeps distant in-window neighbours from dominating
     w = w * jnp.exp(-0.5 * (dx * dx + dy * dy) / (fcfg.desc_window * 0.5) ** 2)
 
-    # Bilinear splat as a *separable hat basis* contracted on the MXU:
+    # Bilinear splat as a *separable hat basis* contraction:
     # max(0, 1 - |g - p|) over cell centers p reproduces exactly the two
     # bilinear tap weights (and zero outside the grid), so
     #   desc[i, y, x] = sum_j w_ij * hat_y(gy_ij)[y] * hat_x(gx_ij)[x]
-    # is one batched (P, K) @ (K, P) matmul per center.  A scatter-add
-    # formulation of the same splat serializes on duplicate indices on TPU
-    # (measured 37.6 ms vs sub-ms for this contraction on v5e).
+    # is one batched (P, K) @ (K, P) matmul per center instead of a
+    # scatter-add with colliding indices.  Default precision (TF32 on the
+    # GPU) is enough: the result is a normalized histogram compared by
+    # correlation, not a metric quantity.
     cells = jnp.arange(P, dtype=jnp.float32)
     bx = jnp.maximum(0.0, 1.0 - jnp.abs(gx[..., None] - cells))   # (K, K, P)
     by = jnp.maximum(0.0, 1.0 - jnp.abs(gy[..., None] - cells))
@@ -220,7 +222,7 @@ def match_features(
     """Mutual-nearest + ratio-gated matches via one correlation matmul.
 
     Replaces the reference's brute-force Hamming matcher: C = Da @ Db^T is a
-    (K, K) MXU matmul; mutual argmax + Lowe ratio run as reductions."""
+    (K, K) matmul; mutual argmax + Lowe ratio run as reductions."""
     C = jnp.dot(
         desc_a, desc_b.T, preferred_element_type=jnp.float32,
         precision=jax.lax.Precision.HIGHEST,
@@ -244,7 +246,7 @@ def match_features(
 
     score = jnp.where(good, best_c, neg)
     M = fcfg.max_matches
-    top_score, top_i = jax.lax.top_k(score, M)
+    top_score, top_i = top_k(score, M)
     sel_j = best_j[top_i]
     m_valid = top_score > neg + 1.0
 

@@ -1,4 +1,4 @@
-"""ORORA-style outlier-robust SE(2) scan registration, TPU-native.
+"""ORORA-style outlier-robust SE(2) scan registration on the accelerator.
 
 Re-implements the capability of the reference's odometry front-end
 (ORORA, arXiv:2303.01876 — submodule absent from the tree; behavior spec in
@@ -11,7 +11,7 @@ outliers, estimate the relative SE(2) motion with
   2. **pairwise-consistency pruning** — translation-invariant measurements
      (TIMs) must preserve pairwise distances; instead of the reference's
      max-clique search we use *spectral matching* (power iteration on the
-     consistency matrix — pure MXU matmuls, no graph code);
+     consistency matrix — pure matmuls, no graph code);
   3. **decoupled estimation** — rotation first via GNC-TLS (graduated
      non-convexity over a truncated-least-squares cost, fixed-iteration
      `lax.scan`), then translation via component-wise robust IRLS
@@ -37,6 +37,7 @@ import jax.numpy as jnp
 
 from navtech_radar_slam_tpu.config import RegistrationConfig
 from navtech_radar_slam_tpu.ops.features import MatchSet
+from navtech_radar_slam_tpu.ops.topk import top_k
 
 
 class RegistrationResult(NamedTuple):
@@ -63,7 +64,8 @@ def spectral_inlier_scores(
     A_ij = 1 iff | ||a_i - a_j|| - ||b_i - b_j|| | <= gate_ij, the classic
     TIM compatibility test (TEASER/ORORA pruning stage).  The principal
     eigenvector of A concentrates mass on the largest consistent cluster =
-    the inlier set; power iteration is M×M matmuls on the MXU."""
+    the inlier set; power iteration is M×M matmuls, at the default
+    precision (TF32 on the GPU): only the ranking of the scores is used."""
     a, b = matches.src_xy, matches.dst_xy
     va = matches.valid
 
@@ -187,7 +189,7 @@ def robust_translation(
 
 def _solve3x3(H: jnp.ndarray, g: jnp.ndarray) -> jnp.ndarray:
     """Closed-form 3x3 solve (adjugate/Cramer). Avoids the general LU path,
-    which compiles poorly on TPU for tiny systems inside scans."""
+    a poor fit for tiny systems inside scans."""
     a, b, c = H[0, 0], H[0, 1], H[0, 2]
     d, e, f = H[1, 0], H[1, 1], H[1, 2]
     h, i, j = H[2, 0], H[2, 1], H[2, 2]
@@ -252,8 +254,9 @@ def anisotropic_refine(
         )                                                          # (M, 2, 3)
         # Cauchy robust scaling on the Mahalanobis residual.  HIGHEST
         # precision: these einsums contract metric coordinates (|a| up to
-        # 80 m); the TPU's bf16 matmul default would bias the normal
-        # equations by ~0.4% — cm-scale odometry error per frame.
+        # 80 m); the GPU's default TF32 keeps ~3 decimal digits, which
+        # would bias the normal equations by ~0.1 % — cm-scale odometry
+        # error per frame.
         hi = jax.lax.Precision.HIGHEST
         r2 = jnp.einsum("mi,mij,mj->m", e, W, e, precision=hi)
         rw = 1.0 / (1.0 + r2)
@@ -272,7 +275,7 @@ def register_scans(matches: MatchSet, cfg: RegistrationConfig) -> RegistrationRe
     M = matches.valid.shape[0]
     scores = spectral_inlier_scores(matches, cfg)
     k = min(cfg.spectral_top_k, M)
-    top_scores, top_idx = jax.lax.top_k(scores, k)
+    top_scores, top_idx = top_k(scores, k)
     sel_valid = matches.valid[top_idx] & (top_scores > 1e-6)
 
     a = matches.src_xy[top_idx]

@@ -1,4 +1,4 @@
-"""ScanContext place recognition, TPU-native.
+"""ScanContext place recognition as batched correlation.
 
 Reproduces the capability of the reference's SCManager
 (Scancontext.{h,cpp}) with a batched-matmul design:
@@ -11,9 +11,9 @@ Reproduces the capability of the reference's SCManager
     (distDirectSC, cpp:69-90) under the best circular column shift.  The
     reference brute-forces 60 sector-key shifts then searches ±10% column
     shifts per candidate (fastAlignUsingVkey cpp:93-113,
-    distanceBtnScanContext cpp:116-148); on TPU the *entire* bank x
-    all-60-shifts search is a single (60, R*S) x (R*S, N) matmul on the MXU
-    plus a masked normalization, so no KD-tree, no candidate pruning, no
+    distanceBtnScanContext cpp:116-148); here the *entire* bank x
+    all-60-shifts search is a single (60, R*S) x (R*S, N) matmul plus a
+    masked normalization, so no KD-tree, no candidate pruning, no
     tree rebuild every 30 inserts (cpp:347-360) — search cost is flat in N
     until the bank shards across chips (parallel/sharded_bank.py);
   * ring-key KNN prefilter (the reference's nanoflann stage, cpp:331-422)
@@ -33,6 +33,14 @@ import jax
 import jax.numpy as jnp
 
 from navtech_radar_slam_tpu.config import ScanContextConfig
+from navtech_radar_slam_tpu.ops.topk import top_k
+
+#: precision of the all-shift correlation einsums.  HIGHEST (full f32):
+#: radar descriptors are sparse occupancy images whose shift distances tie
+#: or nearly tie, and TF32 (the GPU default, ~3 decimal digits) reorders
+#: near-ties and so changes loop candidates; at (4096, 1200) x (1200, 60)
+#: per query the full-f32 product costs next to nothing.
+SC_PRECISION = jax.lax.Precision.HIGHEST
 
 
 def make_scancontext(
@@ -100,14 +108,6 @@ def sc_shift_distance_matrix(
     where entry [n, z] is the reference's distance definition — mean over
     columns (where both columns are non-zero) of (1 - cosine similarity)
     (cpp:69-90) — with the query rolled by z columns."""
-    # TPU: fused Pallas kernel (ops/pallas/sc_corr.py); elsewhere XLA einsum
-    from navtech_radar_slam_tpu.ops.pallas import (
-        sc_shift_distances_pallas, should_use_pallas,
-    )
-
-    if should_use_pallas():
-        return sc_shift_distances_pallas(query, bank)
-
     S = query.shape[1]
     qn, qnz = _normalize_columns(query)
     bn, bnz = _normalize_columns(bank)
@@ -120,18 +120,20 @@ def sc_shift_distance_matrix(
     q_rolled = jnp.moveaxis(q_rolled, 1, 0)      # (S_shift, R, S_col)
     qnz_rolled = qnz[col_idx]                    # (S_shift, S_col)
 
-    # cosine mass: C[n, shift] = sum_cols qn_shifted . bn  -> one MXU matmul
+    # cosine mass: C[n, shift] = sum_cols qn_shifted . bn  -> one matmul
     C = jnp.einsum(
         "zrc,nrc->nz",
         q_rolled,
         bn,
         preferred_element_type=jnp.float32,
+        precision=SC_PRECISION,
     )
     counts = jnp.einsum(
         "zc,nc->nz",
         qnz_rolled.astype(jnp.float32),
         bnz.astype(jnp.float32),
         preferred_element_type=jnp.float32,
+        precision=SC_PRECISION,
     )
     dist = 1.0 - C / jnp.maximum(counts, 1.0)
     return jnp.where(counts > 0, dist, 1.0)
@@ -201,7 +203,7 @@ def ring_key_candidates(
     """Top-k nearest ring keys by L2 — the reference's nanoflann KNN
     (cpp:367-374) as a distance matmul.  bank_keys: (N, R)."""
     d2 = jnp.sum((bank_keys - query_key[None, :]) ** 2, axis=-1)
-    neg_d2, idx = jax.lax.top_k(-d2, k)
+    neg_d2, idx = top_k(-d2, k)
     return idx, -neg_d2
 
 
@@ -243,7 +245,7 @@ def ringkey_two_stage_best(
     qkey = ring_key(query_desc)
     d2 = jnp.sum((bank_ring_keys - qkey[None, :]) ** 2, axis=-1)
     d2 = jnp.where(searchable, d2, jnp.inf)
-    _, cand = jax.lax.top_k(-d2, k)
+    _, cand = top_k(-d2, k)
     cand_desc = bank_desc[cand]                       # (k, R, S)
     if cfg.search_ratio > 0:
         dist, shift = sc_distance_ratio_shifts(query_desc, cand_desc, cfg)

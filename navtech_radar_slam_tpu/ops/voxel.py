@@ -4,8 +4,8 @@ The reference voxel-filters three clouds with pcl::VoxelGrid: the stored
 keyframe cloud at 0.4 m (laserPosegraphOptimization.cpp:482-484, 687-689),
 the stacked loop submap at 0.4 m (cpp:347-351) and the published map at
 0.2 m (cpp:691-692).  PCL emits a *dynamically sized* cloud of per-cell
-centroids — impossible under XLA's static shapes — so the TPU-native
-formulation is a *mask*: keep exactly one representative point per occupied
+centroids — impossible under XLA's static shapes — so the formulation
+here is a *mask*: keep exactly one representative point per occupied
 cell (the lowest-index valid point), leaving shapes untouched.
 
 Divergence note: PCL keeps the cell centroid; we keep a representative

@@ -1,11 +1,12 @@
 """Device-mesh helpers.
 
 The reference's "distributed" story is two ROS processes + five pthreads on
-one CPU (SURVEY §2 parallelism table, §5.8).  The TPU-native scale-out story
-replaces it entirely: the descriptor bank, keyframe map, and pose graph
-shard over a `jax.sharding.Mesh`, with XLA collectives (psum / all_gather)
-riding ICI.  These helpers standardize mesh construction for one chip, one
-host's chips, or a multi-host pod slice (jax.distributed — same code path).
+one CPU (SURVEY §2 parallelism table, §5.8).  Here the descriptor bank,
+keyframe map, and pose graph shard over a `jax.sharding.Mesh`, with XLA
+collectives (psum / all_gather) between the devices.  These helpers
+standardize mesh construction for one device, one host's devices, or
+several hosts (jax.distributed — same code path).  The mesh is 1-D: the
+bank search and the pose graph need no device topology.
 """
 
 from __future__ import annotations
@@ -25,12 +26,11 @@ def init_distributed(coordinator: Optional[str] = None,
                      process_id: Optional[int] = None) -> int:
     """Initialize multi-host JAX (call once per host before make_mesh()).
 
-    On cloud TPU pods the arguments auto-detect from the environment
-    (`jax.distributed.initialize()` with no args); for manual clusters pass
-    coordinator "host:port", the process count, and this host's index.
-    Returns the global device count.  After this, `make_mesh()` over
-    `jax.devices()` spans the whole slice and every collective in
-    sharded_bank/dist_pgo rides ICI/DCN unchanged."""
+    Pass coordinator "host:port", the process count, and this host's
+    index; with no arguments JAX reads them from a cluster environment it
+    recognises.  Returns the global device count.  After this,
+    `make_mesh()` over `jax.devices()` spans every host and the
+    collectives in sharded_bank/dist_pgo run unchanged."""
     import jax
 
     if coordinator is None:
@@ -49,9 +49,16 @@ def make_mesh(
     axis: str = BANK_AXIS,
     devices: Optional[Sequence] = None,
 ) -> Mesh:
-    """1-D mesh over the first `num_devices` devices (default: all)."""
+    """1-D mesh over the first `num_devices` devices (default: all).
+
+    Raises ValueError when fewer than `num_devices` devices are present."""
     devs = list(devices if devices is not None else jax.devices())
     if num_devices is not None:
+        if num_devices > len(devs):
+            raise ValueError(
+                f"mesh of {num_devices} devices requested but only "
+                f"{len(devs)} present ({devs[0].platform if devs else 'none'})"
+            )
         devs = devs[:num_devices]
     return Mesh(np.asarray(devs), (axis,))
 

@@ -5,12 +5,12 @@ the bank grows by scaling chips/hosts.  The bank (N, R, S) shards along the
 keyframe axis; query descriptors are replicated; each shard searches its
 slice and the global best is reduced with one tiny all_gather — the
 reference's KD-tree + per-candidate loop (Scancontext.cpp:331-422) becomes
-  shard-local MXU correlation  +  O(devices) gather.
+  shard-local correlation matmul  +  O(devices) gather.
 
 Two shard-local search modes, following ScanContextConfig.search_mode:
 
   * "full": the batched all-shift correlation over the whole local slice
-    (ops/scancontext.sc_distance_all_shifts) — the TPU-native default;
+    (ops/scancontext.sc_distance_all_shifts) — the default;
   * "ringkey": the reference's two-stage pipeline done shard-locally —
     ring-key KNN prefilter (cpp:367-374) selects this shard's
     ``shard_top_k`` best candidates (ParallelConfig.shard_top_k), then the

@@ -1,13 +1,14 @@
 """ctypes bindings for the native radar loader (runtime/src/radar_loader.cc).
 
 The native library decodes MulRan polar PNGs and prefetches them on worker
-threads into pre-allocated, TPU-lane-padded float32 buffers, so the Python
-consumer only does `device_put` — the host-side analogue of the reference's
-C++ file-reading front-end loop (README.md:27).
+threads into pre-allocated buffers padded to `RadarConfig.padded_range_bins`,
+so the Python consumer only does `device_put` — the host-side analogue of
+the reference's C++ file-reading front-end loop (README.md:27).
 
-Builds on demand with `make` (g++ + libpng, both baked into the image);
-falls back cleanly if the toolchain or library is unavailable — callers
-check `native_available()` and use the NumPy decoder (data/mulran.py).
+The library is not shipped prebuilt: the first use builds it into
+`runtime/lib/` with `make` (g++ + libpng).  Without that toolchain it falls
+back cleanly — callers check `native_available()` and use the NumPy
+decoder (data/mulran.py), and the CLI reports which loader ran.
 """
 
 from __future__ import annotations
@@ -142,8 +143,7 @@ class NativeRadarLoader:
 
     ``raw_u8=True`` yields power as the raw PNG bytes (uint8, padded) for
     the normalize-on-device path: the jitted front-end casts /255 on chip,
-    so host->device traffic drops 4x vs float32 — the binding that matters
-    when the device is remote/tunneled.  Every jitted consumer
+    so host->device traffic drops 4x vs float32.  Every jitted consumer
     (extract_scan_features and everything above it) accepts either dtype."""
 
     def __init__(self, paths: List[str], cfg: Optional[RadarConfig] = None,

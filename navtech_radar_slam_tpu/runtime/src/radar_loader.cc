@@ -2,10 +2,10 @@
 //
 // The reference's front-end is a C++ node that reads MulRan polar PNGs
 // directly from disk in its scan loop (README.md:27 "file-based input").
-// Here the native runtime owns the host-side data path so the TPU never
+// Here the native runtime owns the host-side data path so the device never
 // waits on image decode: a worker pool decodes scans ahead of the consumer
 // into a bounded ring of pre-allocated float32 buffers (power image already
-// normalized and padded to the TPU lane multiple), while the Python side
+// normalized and padded to the configured range-bin width), while the Python side
 // only moves ready buffers to the device.
 //
 // Exposed as a plain C API consumed via ctypes (no pybind11 in this image).

@@ -3,14 +3,17 @@ import json
 import os
 
 import numpy as np
+import pytest
 
 from navtech_radar_slam_tpu.config import SlamConfig
 from navtech_radar_slam_tpu.data import RadarSimulator
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
 
 def write_sequence(tmp_path, n_scans=8, speed=6.0, radius=10.0):
     """Render a synthetic circuit into MulRan-format PNGs."""
-    import cv2
+    from navtech_radar_slam_tpu.data.png import write_gray_png
 
     cfg = SlamConfig()
     sim = RadarSimulator(cfg.radar)
@@ -32,7 +35,7 @@ def write_sequence(tmp_path, n_scans=8, speed=6.0, radius=10.0):
                 np.uint8,
             )
             img[a, 10] = 255
-        cv2.imwrite(str(seq / f"{int(stamp)}.png"), img)
+        write_gray_png(str(seq / f"{int(stamp)}.png"), img)
     return tmp_path, gt
 
 
@@ -367,3 +370,51 @@ def test_cli_gps_absolute_altitude(tmp_path):
     zs = np.asarray(g.gps_meas[:n, 2])[np.asarray(g.gps_valid[:n])]
     assert len(zs) >= 3, "expected GPS factors on most keyframes"
     assert np.all(np.abs(zs) < 5.0), f"absolute altitudes leaked: {zs}"
+
+
+def test_cli_platform_gpu_fails_without_gpu(tmp_path):
+    """--platform gpu on a machine whose JAX finds no GPU exits non-zero
+    with a clear message instead of running on the CPU."""
+    import subprocess
+    import sys
+
+    seq_dir, _ = write_sequence(tmp_path, n_scans=1)
+    out = tmp_path / "out"
+    proc = subprocess.run(
+        [sys.executable, "-m", "navtech_radar_slam_tpu.cli",
+         "--seq_dir", str(seq_dir), "--platform", "gpu",
+         "--output_dir", str(out)],
+        capture_output=True, text=True, timeout=300, cwd=REPO,
+        env=dict(os.environ, JAX_PLATFORMS="cpu"),
+    )
+    assert proc.returncode == 2, proc.stderr
+    assert "--platform gpu" in proc.stderr and "no such device" in proc.stderr
+    assert not (out / "stats.json").exists()
+
+
+@pytest.mark.parametrize("env_dir", [None, "custom_cache"])
+def test_compile_cache_location(tmp_path, env_dir):
+    """JAX_COMPILATION_CACHE_DIR wins and nothing else is set in code;
+    without it the cache sits at the fixed <repo>/.jax_cache."""
+    import subprocess
+    import sys
+
+    from navtech_radar_slam_tpu.utils import compile_cache
+
+    env = dict(os.environ)
+    env.pop("JAX_COMPILATION_CACHE_DIR", None)
+    if env_dir is not None:
+        env["JAX_COMPILATION_CACHE_DIR"] = str(tmp_path / env_dir)
+    code = ("import jax\n"
+            "from navtech_radar_slam_tpu.utils.compile_cache import "
+            "enable_compile_cache\n"
+            "print(enable_compile_cache())\n"
+            "print(jax.config.jax_compilation_cache_dir)\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300, env=env, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr
+    returned, configured = proc.stdout.split()
+    expect = (str(tmp_path / env_dir) if env_dir
+              else compile_cache.DEFAULT_DIR)
+    assert returned == configured == expect
+    assert compile_cache.DEFAULT_DIR == os.path.join(REPO, ".jax_cache")

@@ -2,6 +2,7 @@ import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from navtech_radar_slam_tpu.config import IcpConfig
 from navtech_radar_slam_tpu.ops import icp
@@ -85,3 +86,28 @@ def test_icp_partial_overlap(rng):
     init = jnp.asarray([0.0, 0.0, 0.12], jnp.float32)
     res = icp.icp_se2(src, sv, tgt, tv, init, CFG)
     np.testing.assert_allclose(np.asarray(res.rel_pose), pose_true, atol=0.05)
+
+
+@pytest.mark.parametrize("nq,nt", [(7, 33), (300, 900), (1024, 4096)])
+def test_nearest_neighbors_matches_float64_brute_force(rng, nq, nt):
+    """Subtract-square NN at ±200 m ranges, invalid targets included,
+    against a float64 NumPy brute force: same indices (no ties occur in
+    continuous random clouds) and distances to f32 rounding."""
+    from navtech_radar_slam_tpu.ops.reference import nearest_neighbors_np
+
+    src = rng.uniform(-200, 200, (nq, 2)).astype(np.float32)
+    tgt = rng.uniform(-200, 200, (nt, 2)).astype(np.float32)
+    tv = rng.random(nt) > 0.2
+    d, i = icp.nearest_neighbors(jnp.asarray(src), jnp.asarray(tgt),
+                                 jnp.asarray(tv))
+    d_ref, i_ref = nearest_neighbors_np(src, tgt, tv)
+    np.testing.assert_array_equal(np.asarray(i), i_ref)
+    assert tv[np.asarray(i)].all()
+    np.testing.assert_allclose(np.asarray(d), d_ref, rtol=1e-5)
+
+
+def test_nearest_neighbors_all_targets_invalid(rng):
+    src = jnp.asarray(rng.uniform(-10, 10, (64, 2)), jnp.float32)
+    tgt = jnp.asarray(rng.uniform(-10, 10, (128, 2)), jnp.float32)
+    d, _ = icp.nearest_neighbors(src, tgt, jnp.zeros(128, bool))
+    assert np.isinf(np.asarray(d)).all()

@@ -534,3 +534,10 @@ def test_engine_mesh_chunked_growth():
     np.testing.assert_allclose(
         eng_m.trajectory()[:, :3, 3], eng_s.trajectory()[:, :3, 3], atol=0.1
     )
+
+
+def test_make_mesh_raises_when_too_few_devices():
+    n = len(jax.devices())
+    assert mesh_mod.make_mesh(n).devices.size == n
+    with pytest.raises(ValueError, match=f"mesh of {n + 1} devices"):
+        mesh_mod.make_mesh(n + 1)

@@ -93,9 +93,9 @@ def test_gnc_weights_monotone():
 
 
 def test_constellation_descriptor_matches_scatter_reference():
-    """The MXU hat-basis contraction reproduces the bilinear scatter splat
-    exactly (the scatter formulation serializes on TPU; this is the fast
-    path's correctness anchor)."""
+    """The hat-basis contraction reproduces the bilinear scatter splat
+    exactly (the contraction replaces a scatter with colliding indices;
+    this is the fast path's correctness anchor)."""
     import numpy as np
     import jax.numpy as jnp
 

@@ -234,3 +234,39 @@ def test_scmanager_api_parity(rng):
     mgr.setSCdistThres(0.0)  # impossible threshold -> no loops
     idx3, _ = mgr.detectLoopClosureID()
     assert idx3 == -1
+
+
+def _dist_direct_sc(sc1, sc2):
+    """distDirectSC (Scancontext.cpp:69-90) as the reference writes it: a
+    loop over columns, skipping any column that is zero in either."""
+    total, n_eff = 0.0, 0
+    for col in range(sc1.shape[1]):
+        a, b = sc1[:, col].astype(np.float64), sc2[:, col].astype(np.float64)
+        na, nb = np.linalg.norm(a), np.linalg.norm(b)
+        if na == 0.0 or nb == 0.0:
+            continue
+        total += a @ b / (na * nb)
+        n_eff += 1
+    return 1.0 - total / n_eff if n_eff else 1.0
+
+
+def test_shift_distance_matrix_matches_dist_direct_sc_loop(rng):
+    """Every (bank row, shift) entry equals distDirectSC of the bank row
+    against the query rolled by that shift, computed column by column; the
+    vectorized float64 reference used on the chip agrees too."""
+    from navtech_radar_slam_tpu.ops.reference import (
+        sc_shift_distance_matrix_np,
+    )
+
+    bank = np.stack([desc_of(random_cloud(rng, n=60)) for _ in range(5)])
+    bank[2, :, 10:20] = 0.0                      # empty sectors
+    query = np.asarray(np.roll(bank[3], 5, axis=1))
+    dist = np.asarray(sc.sc_shift_distance_matrix(jnp.asarray(query),
+                                                  jnp.asarray(bank)))
+    S = query.shape[1]
+    loop = np.array([[_dist_direct_sc(np.roll(query, -z, axis=1), b)
+                      for z in range(S)] for b in np.asarray(bank)])
+    np.testing.assert_allclose(dist, loop, atol=1e-5)
+    np.testing.assert_allclose(sc_shift_distance_matrix_np(query, bank),
+                               loop, atol=1e-12)
+    assert int(dist[3].argmin()) == 5 and dist[3].min() < 1e-5

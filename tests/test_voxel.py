@@ -1,5 +1,5 @@
 """Unit tests for the static-shape voxel downsampling mask (ops/voxel.py) —
-the TPU-native equivalent of the reference's pcl::VoxelGrid filters
+the static-shape equivalent of the reference's pcl::VoxelGrid filters
 (laserPosegraphOptimization.cpp:347-351, 482-484, 687-692)."""
 
 import jax.numpy as jnp

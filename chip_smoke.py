@@ -114,8 +114,7 @@ def write_sequence(scans: int) -> str:
     shutil.rmtree(seq, ignore_errors=True)
     _run([sys.executable, "-m", f"{PKG}.data.make_sequence", "--out", seq,
           "--scans", str(scans), "--radius", "30", "--speed", "6",
-          "--dropout", "250:6", "--dropout", "400:4",
-          "--workers", str(min(16, os.cpu_count() or 1))], 900)
+          "--dropout", "250:6", "--dropout", "400:4"], 900)
     return seq
 
 

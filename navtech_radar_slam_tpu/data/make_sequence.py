@@ -29,6 +29,7 @@ failure/coast handling.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import multiprocessing
 import os
@@ -42,6 +43,8 @@ from navtech_radar_slam_tpu.data.png import write_gray_png
 from navtech_radar_slam_tpu.data.synthetic import RadarSimulator, SimConfig
 
 START_STAMP_US = 1_600_000_000_000_000  # arbitrary epoch, us
+# a spawned renderer takes about a second to start, some eight scans' work
+_SCANS_PER_WORKER = 32
 
 
 def encode_polar_png(power: np.ndarray, stamp_us: int, rc: RadarConfig,
@@ -92,7 +95,6 @@ def write_sequence(
     gps_rate_hz: float = 10.0,
     gps_alt0: float = 70.0,
     world: str = "circuit",
-    workers: int = 1,
 ) -> np.ndarray:
     """Render + write the sequence; returns the (N, 3) ground-truth poses.
 
@@ -108,8 +110,9 @@ def write_sequence(
     clone site B, and laps there — ScanContext produces below-threshold
     cross-site candidates that submap ICP must reject.
 
-    ``workers > 1`` renders the scans in that many spawned processes; the
-    files are the same either way."""
+    Scans render in parallel, one process per CPU but at most one per
+    ``_SCANS_PER_WORKER`` scans; a short sequence renders in this
+    process."""
     rc = RadarConfig()
     if world == "alias":
         if sim_cfg is None:
@@ -148,17 +151,15 @@ def write_sequence(
     jobs = [(i, gt[i], gt[i + 1], drop[i], stamps[i])
             for i in range(num_scans)]
     work = functools.partial(_write_scan, sim, seq, seed, period, distort)
-    if workers > 1:
-        pool = ProcessPoolExecutor(
-            workers, mp_context=multiprocessing.get_context("spawn"))
-        with pool:
+    workers = min(os.cpu_count() or 1, num_scans // _SCANS_PER_WORKER)
+    with contextlib.ExitStack() as stack:
+        if workers > 1:
+            pool = stack.enter_context(ProcessPoolExecutor(
+                workers, mp_context=multiprocessing.get_context("spawn")))
             done = pool.map(work, jobs, chunksize=8)
-            for i, _ in enumerate(done):
-                if progress and (i + 1) % 50 == 0:
-                    print(f"  rendered {i + 1}/{num_scans}", flush=True)
-    else:
-        for i, job in enumerate(jobs):
-            work(job)
+        else:
+            done = map(work, jobs)
+        for i, _ in enumerate(done):
             if progress and (i + 1) % 50 == 0:
                 print(f"  rendered {i + 1}/{num_scans}", flush=True)
 
@@ -217,8 +218,6 @@ def main(argv=None) -> int:
                    help="'alias' = perceptual-aliasing two-site course "
                         "with dynamic scatterers (cross-site ScanContext "
                         "candidates that ICP must reject)")
-    p.add_argument("--workers", type=int, default=1,
-                   help="render scans in this many processes")
     args = p.parse_args(argv)
 
     gt = write_sequence(
@@ -228,7 +227,6 @@ def main(argv=None) -> int:
         start_stamp_us=START_STAMP_US + round(args.stamp_offset_s * 1e6),
         gps=args.gps,
         world=args.world,
-        workers=args.workers,
     )
     laps = args.speed * args.scans / (4.0 * 2 * np.pi * args.radius)
     print(f"wrote {args.scans} scans ({laps:.2f} laps of r={args.radius} m) "

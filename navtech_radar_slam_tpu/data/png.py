@@ -3,7 +3,9 @@
 MulRan / Oxford polar radar scans are 8-bit grayscale PNGs (colour type 0,
 bit depth 8, no interlace), so the host decode path needs nothing beyond
 the standard library and NumPy.  The reader undoes all five PNG row
-filters; the writer emits filter type 1 (Sub) on every row.  Other PNG
+filters: None, Sub and Up row by row, and any image with Average or Paeth
+rows (which libpng's adaptive filtering writes) along anti-diagonals; the
+writer emits filter type 1 (Sub) on every row.  Other PNG
 flavours (palette, colour, 16-bit, interlaced) are rejected with
 ValueError.
 """
@@ -47,36 +49,42 @@ def write_gray_png(path: str, img: np.ndarray) -> None:
         f.write(encode_gray_png(img))
 
 
-def _paeth_row(cur: np.ndarray, prior: np.ndarray) -> None:
-    """In-place Paeth reconstruction of one row (sequential along x)."""
-    c = cur.tolist()
-    b = prior.tolist()
-    left, up_left = 0, 0
-    for x in range(len(c)):
-        up = b[x]
-        p = left + up - up_left
-        pa, pb, pc = abs(p - left), abs(p - up), abs(p - up_left)
-        if pa <= pb and pa <= pc:
-            pred = left
-        elif pb <= pc:
-            pred = up
-        else:
-            pred = up_left
-        left = (c[x] + pred) & 0xFF
-        c[x] = left
-        up_left = up
-    cur[:] = c
+def _unfilter_wavefront(rows: np.ndarray) -> np.ndarray:
+    """Undo any mix of the five row filters, vectorised over rows.
 
-
-def _average_row(cur: np.ndarray, prior: np.ndarray) -> None:
-    """In-place Average reconstruction of one row (sequential along x)."""
-    c = cur.tolist()
-    b = prior.tolist()
-    left = 0
-    for x in range(len(c)):
-        left = (c[x] + ((left + b[x]) >> 1)) & 0xFF
-        c[x] = left
-    cur[:] = c
+    Pixel (y, x) depends on (y, x-1), (y-1, x) and (y-1, x-1), so all
+    pixels on one anti-diagonal x + y = d are independent of each other.
+    The image is stored skewed, one anti-diagonal per row, so each of the
+    h + w - 1 steps is a few NumPy operations over the h image rows.  Cells
+    left of x = 0 stay 0, the spec's value for a missing left or upper-left
+    neighbour."""
+    h, w = rows.shape[0], rows.shape[1] - 1
+    ftype = rows[:, 0]
+    yy, xx = np.indices((h, w))
+    diag = xx + yy + 1
+    skew_raw = np.zeros((h + w, h), np.int16)    # [anti-diagonal, image row]
+    skew_raw[diag, yy] = rows[:, 1:]
+    out = np.zeros((h + w, h + 1), np.int16)     # column 0: the zero prior row
+    zero = np.zeros(h, np.int16)
+    has_avg, has_paeth = bool((ftype == 3).any()), bool((ftype == 4).any())
+    avg = paeth = zero
+    for d in range(1, h + w):
+        a = out[d - 1, 1:]                       # left
+        b = out[d - 1, :-1]                      # up
+        c = out[d - 2, :-1] if d > 1 else zero   # up-left
+        if has_avg:
+            avg = (a + b) >> 1
+        if has_paeth:
+            # with p = a + b - c: p - a = b - c, p - b = a - c
+            bc, ac = b - c, a - c
+            pa, pb, pc = np.abs(bc), np.abs(ac), np.abs(bc + ac)
+            paeth = np.where((pa <= pb) & (pa <= pc), a,
+                             np.where(pb <= pc, b, c))
+        cur = out[d, 1:]
+        np.add(skew_raw[d], np.choose(ftype, (zero, a, b, avg, paeth)),
+               out=cur)
+        np.bitwise_and(cur, 0xFF, out=cur)
+    return out[diag, yy + 1].astype(np.uint8)
 
 
 def decode_gray_png(data: bytes) -> np.ndarray:
@@ -111,6 +119,12 @@ def decode_gray_png(data: bytes) -> np.ndarray:
     if len(raw) != h * (w + 1):
         raise ValueError("PNG data size does not match its header")
     rows = np.frombuffer(raw, np.uint8).reshape(h, w + 1)
+    if rows[:, 0].max() > 4:
+        raise ValueError(f"unknown PNG filter type {rows[:, 0].max()}")
+    if rows[:, 0].max() > 2:
+        # Average or Paeth rows depend on their left neighbour through a
+        # non-linear predictor: no per-row prefix sum exists
+        return _unfilter_wavefront(rows)
     img = np.empty((h, w), np.uint8)
     prior = np.zeros(w, np.uint8)
     for y in range(h):
@@ -119,12 +133,6 @@ def decode_gray_png(data: bytes) -> np.ndarray:
             cur = np.cumsum(cur, dtype=np.uint8)
         elif ftype == 2:
             cur += prior
-        elif ftype == 3:
-            _average_row(cur, prior)
-        elif ftype == 4:
-            _paeth_row(cur, prior)
-        elif ftype != 0:
-            raise ValueError(f"unknown PNG filter type {ftype}")
         img[y] = cur
         prior = cur
     return img

@@ -13,8 +13,8 @@ cen2019 (one target per high-intensity region):
      AND low gradient, i.e. region interiors rather than edges.
   4. mask = h > mean(h) over the valid region.
   5. One peak (max power) per contiguous masked run along each azimuth —
-     computed with a *segmented scan* (run-reset running max, forward and
-     backward), not a per-run loop.
+     computed with a *segmented associative scan* (run-reset running max),
+     not a per-run loop, so the whole step is two `lax.associative_scan`s.
   6. Global top-K peaks by power -> fixed-size (K, ...) feature set + mask.
 
 cen2018 (threshold detector): mask = s > mean_az + zq * std_az per azimuth,
@@ -85,27 +85,20 @@ def _segmented_running_max(v: jnp.ndarray, reset: jnp.ndarray, reverse: bool = F
     """Inclusive running max along the last axis that restarts where
     ``reset`` is True (at position i the scan starts fresh from v[i]).
 
-    Hillis-Steele doubling over the segmented-max monoid — (m2, r2) after
-    (m1, r1) gives m = m2 if r2 else max(m1, m2) — as a ``fori_loop`` of
-    ceil(log2(n)) elementwise steps, each one fusion."""
-    if reverse:
-        return _segmented_running_max(v[..., ::-1], reset[..., ::-1])[..., ::-1]
-    n = v.shape[-1]
-    neg = jnp.full_like(v, -jnp.inf)
-    no = jnp.zeros_like(reset)
+    Implemented with `lax.associative_scan` over the standard segmented-max
+    monoid: (m2, r2) ∘ (m1, r1) applied left-to-right gives
+    m = m2 if r2 else max(m1, m2).
+    """
 
-    def step(i, carry):
-        m, r = carry
-        k = jnp.left_shift(1, i)
-        # element j combines with element j - k (identity -inf/False before 0)
-        m_left = jax.lax.dynamic_slice_in_dim(
-            jnp.concatenate([neg, m], axis=-1), n - k, n, axis=-1)
-        r_left = jax.lax.dynamic_slice_in_dim(
-            jnp.concatenate([no, r], axis=-1), n - k, n, axis=-1)
-        return jnp.where(r, m, jnp.maximum(m, m_left)), r | r_left
+    def combine(a, b):
+        m1, r1 = a
+        m2, r2 = b
+        m = jnp.where(r2, m2, jnp.maximum(m1, m2))
+        return m, jnp.logical_or(r1, r2)
 
-    steps = max(1, (n - 1).bit_length())
-    m, _ = jax.lax.fori_loop(0, steps, step, (v, reset))
+    m, _ = jax.lax.associative_scan(
+        combine, (v, reset), axis=v.ndim - 1, reverse=reverse
+    )
     return m
 
 

@@ -28,13 +28,13 @@ _LIB_PATH = os.path.join(_RUNTIME_DIR, "lib", "libradar_loader.so")
 
 _lib = None
 _lib_lock = threading.Lock()
-_build_failed = False
+_build_error: Optional[str] = None
 
 
 def _load_library():
-    global _lib, _build_failed
+    global _lib, _build_error
     with _lib_lock:
-        if _lib is not None or _build_failed:
+        if _lib is not None or _build_error is not None:
             return _lib
         if not os.path.exists(_LIB_PATH):
             try:
@@ -44,13 +44,21 @@ def _load_library():
                     capture_output=True,
                     timeout=120,
                 )
-            except Exception:
-                _build_failed = True
+            except subprocess.CalledProcessError as e:
+                err = e.stderr.decode(errors="replace").strip().splitlines()
+                # the compiler's first error names the cause (a missing
+                # header, say); make's own last line does not
+                why = next((ln for ln in err if "error" in ln),
+                           err[-1] if err else str(e))
+                _build_error = f"make failed: {why.strip()}"
+                return None
+            except (OSError, subprocess.TimeoutExpired) as e:
+                _build_error = f"make did not run: {e}"
                 return None
         try:
             lib = ctypes.CDLL(_LIB_PATH)
-        except OSError:
-            _build_failed = True
+        except OSError as e:
+            _build_error = f"cannot load {_LIB_PATH}: {e}"
             return None
 
         lib.radar_loader_create.restype = ctypes.c_void_p
@@ -105,6 +113,12 @@ def _load_library():
 
 def native_available() -> bool:
     return _load_library() is not None
+
+
+def native_build_error() -> Optional[str]:
+    """Why the native library is unavailable (None if it loaded or has not
+    been tried yet)."""
+    return _build_error
 
 
 def _alloc(cfg: RadarConfig, raw_u8: bool = False):

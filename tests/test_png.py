@@ -16,12 +16,14 @@ from navtech_radar_slam_tpu.data.png import (
 
 
 def _filtered_png(img, ftype):
-    """PNG bytes with every row encoded with PNG filter ``ftype`` (0-4),
-    written out with the spec's scalar formulas."""
+    """PNG bytes with every row encoded with PNG filter ``ftype`` (0-4, or
+    one type per row), written out with the spec's scalar formulas."""
     h, w = img.shape
     a = img.astype(np.int64)
+    ftypes = np.broadcast_to(ftype, (h,))
     raw = bytearray()
     for y in range(h):
+        ftype = int(ftypes[y])
         raw.append(ftype)
         for x in range(w):
             left = a[y, x - 1] if x else 0
@@ -68,6 +70,16 @@ def test_decodes_every_row_filter(rng, ftype):
                                   img)
 
 
+def test_decodes_mixed_row_filters(rng):
+    """Rows of all five types in one image, including runs of Average and
+    Paeth rows under rows of the other types."""
+    img = (rng.random((31, 57)) ** 2 * 255).astype(np.uint8)
+    ftypes = rng.integers(0, 5, img.shape[0])
+    ftypes[:5] = [4, 4, 3, 0, 1]
+    np.testing.assert_array_equal(decode_gray_png(_filtered_png(img, ftypes)),
+                                  img)
+
+
 def test_written_scan_decodes_like_cv2(tmp_path, rng):
     """A MulRan-format scan written by the codec decodes through
     decode_polar_scan exactly as the same file read by OpenCV does, and an
@@ -95,6 +107,14 @@ def test_rejects_unsupported_and_corrupt():
     rgb[8 + 8 + 9] = 2                       # IHDR colour type -> RGB
     with pytest.raises(ValueError, match="unsupported"):
         decode_gray_png(bytes(rgb))
+    bad_filter = bytearray(_filtered_png(np.zeros((2, 3), np.uint8), 0))
+    idat = bad_filter.index(b"IDAT") + 4
+    body = zlib.compress(b"\x00\x00\x00\x00\x05\x00\x00\x00")
+    bad_filter[idat - 8:] = (struct.pack(">I", len(body)) + b"IDAT" + body
+                             + struct.pack(">I", zlib.crc32(b"IDAT" + body))
+                             + bytes(bad_filter[-12:]))
+    with pytest.raises(ValueError, match="unknown PNG filter type 5"):
+        decode_gray_png(bytes(bad_filter))
     with pytest.raises(ValueError, match="not a PNG"):
         decode_gray_png(b"garbage bytes, not an image")
     with pytest.raises(ValueError):
